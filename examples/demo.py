@@ -5,7 +5,7 @@ pipeline stages through their CLIs, and render the final reference flow.
 
 Produces <output_dir>/dt_out/frame_004.flo plus color visualizations at every
 stage. Uses the built-in edge detector and grid matcher (no external
-binaries); runs on CPU or TPU, whichever JAX selects.
+binaries); runs on CPU or GPU, whichever JAX selects.
 """
 from __future__ import annotations
 

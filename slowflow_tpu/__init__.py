@@ -1,4 +1,4 @@
-"""slowflow_tpu — a TPU-native (JAX/XLA/Pallas) rebuild of the Slow Flow pipeline.
+"""slowflow_tpu — a JAX/XLA rebuild of the Slow Flow pipeline.
 
 Re-implements, from scratch and in array-parallel form, the capabilities of the
 CVPR 2017 "Slow Flow" reference-data pipeline (Janai et al.): adaptive frame-rate

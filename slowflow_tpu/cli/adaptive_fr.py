@@ -11,7 +11,7 @@ computes the q-quantile of the flow magnitude distribution (normalized back to
 the recorded resolution and frame rate), and writes `quantil.dat` +
 `results.info` into the sequence folder for slow_flow to pick up.
 
-TPU redesign: samples are independent — the low-res two-frame estimations run
+Array redesign: samples are independent — the low-res two-frame estimations run
 as one batched (vmap) dispatch instead of the reference's OpenMP folder loop.
 """
 from __future__ import annotations
@@ -32,6 +32,7 @@ from ..utils.colorwheel import flow_color_img
 from ..io.images import write_image
 from ..variational import TwoFrameParams, variational_twoframe
 from .common import frame_path, load_frame
+from ..utils.compile_cache import enable_compile_cache
 
 
 def estimate_pair(im1: np.ndarray, im2: np.ndarray,
@@ -134,7 +135,7 @@ def run_folder(path, folder, fmt="%07i.tif", scale=0.25, skip=2, samples=40,
     # ------------------------------------------- batched estimation (1 pass)
     # EPIC inits run per sample on the host (ingesting SED/DeepMatching
     # files when present); the N variational refinements are ONE vmapped
-    # device dispatch — the TPU replacement for OpenMP-over-folders
+    # device dispatch — the replacement for OpenMP-over-folders
     # (adaptiveFR.cpp:245).
     todo = [r for r in records if r[2] is not None]
     t_est = time.time()
@@ -231,6 +232,7 @@ def run_folder(path, folder, fmt="%07i.tif", scale=0.25, skip=2, samples=40,
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     opts = dict(path="", folder="", fmt="%07i.tif", scale=0.25, skip=2,
                 samples=40, sample_step=10, start=0, q=0.90, raw=False,
                 sintel=False, subframes=False, overwrite=False, append="")

@@ -30,6 +30,7 @@ from ..epic import EpicParams
 from ..epic.edges import detect_edges
 from ..tracking.driver import TrackingConfig, track_final_pairs_batched
 from .common import frame_path, load_frame, unique_output_dir
+from ..utils.compile_cache import enable_compile_cache
 
 
 def _resize_flow_np(flow, nh, nw):
@@ -298,10 +299,8 @@ def run(cfg_path: str, select=-1, resume=False, output=None, threads=None,
     verbose = params.verbosity(Verbosity.VER_CMD)
     n_threads = max(1, threads or 1)
     # -threads N drives the host prefetch pool only; batching finals onto a
-    # leading device axis is opt-in (-batch_finals N) — measured SLOWER on
-    # both CPU (0.83x) and the live chip (0.83x: 10.99 -> 13.22 s/final,
-    # tools/prof_dt.py --ab): the alternation's bank kernels are already
-    # latency-amortized per final, so the F axis only adds padding work
+    # leading device axis is opt-in (-batch_finals N): it measured slower
+    # on the CPU (0.83x), and on the card it is not measured yet
     batch_n = max(1, batch_finals or 1)
 
     def flush(jobs):
@@ -392,6 +391,7 @@ def run(cfg_path: str, select=-1, resume=False, output=None, threads=None,
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     if not argv:
         print(__doc__)
         return -1

@@ -23,6 +23,7 @@ from ..epic.matching import grid_matches
 from ..io import read_edges, read_matches, write_flo
 from ..io.images import read_image
 from ..variational import TwoFrameParams, variational_twoframe
+from ..utils.compile_cache import enable_compile_cache
 
 
 def usage():
@@ -31,6 +32,7 @@ def usage():
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     if len(argv) < 5:
         usage()
         return 1

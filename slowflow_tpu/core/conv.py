@@ -47,8 +47,8 @@ DERIV_3PT = full_coeffs([0.0, -0.5], even=False)
 def _shift_clamped(x: jnp.ndarray, off: int, axis: int) -> jnp.ndarray:
     """x shifted so out[i] = x[clamp(i + off)] along `axis` (edge replicate).
 
-    Implemented as slice + edge pad (pure data movement) — gathers with index
-    vectors lower to scalar loops on TPU, pad/slice stays vectorized.
+    Implemented as slice + edge pad (pure data movement), which XLA fuses
+    into the consuming elementwise op.
     """
     if off == 0:
         return x

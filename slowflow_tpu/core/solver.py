@@ -9,7 +9,7 @@ sequential Gauss-Seidel SOR with over-relaxation omega on the system
 over the 4-neighborhood with horizontal weights wh (edge (i,j)-(i+1,j)) and
 vertical weights wv (edge (i,j)-(i,j+1)).
 
-TPU version: **red-black** coupled SOR — two half-sweeps per iteration on the
+Array version: **red-black** coupled SOR — two half-sweeps per iteration on the
 checkerboard coloring. Same fixed point as the sequential sweep (the system is
 unchanged; only the update order differs), so parity with the reference is
 defined at convergence, not per-iteration (SURVEY.md §7 hard-part 1).

@@ -5,36 +5,12 @@ sample src at (x + factor*wx, y + factor*wy) with bilinear weights; sample
 coordinates are clamped per-corner (RECTIFY); the mask is 1 iff the continuous
 coordinate lies inside [0, W-1] x [0, H-1].
 
-TPU formulation: XLA gathers lower to near-scalar loops on TPU, so the
-4-corner gather is re-expressed as two one-hot contractions on the MXU (the
-standard TPU lookup trick):
-
-    C[c, y', i, j] = sum_x' src[c, y', x'] * Ox[x', i, j]     (matmul, MXU)
-    out[c, i, j]   = sum_y' Oy[y', i, j] * C[c, y', i, j]     (fused reduce)
-
-with Ox carrying the (1-dx)/dx weights at the clamped x0/x1 columns and Oy
-the dy weights at y0/y1 — exactly the 4-corner bilinear formula. The output
-rows are processed in chunks (lax.map) to bound the one-hot intermediates.
-
-The contractions run at Precision.HIGH (bf16x3): max abs deviation from the
-exact f32 warp is ~7e-3 on 0-255 images (measured) — far below the data
-term's sensitivity — while the matmuls run ~1.8x faster than HIGHEST on the
-MXU. DEFAULT (single-pass bf16) is NOT acceptable (~1.0 max abs error).
+The four corners are plain gathers, so the result is exact in f32 whatever
+the flow (no matrix product, hence no reduced-precision contraction).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-
-# Banded-block geometry: (rows, cols) per output block and the (x, y) halo
-# around each block's displacement window. The per-block lax.map iteration
-# carries a fixed overhead (dynamic_slice + one-hot build), so fewer/bigger
-# blocks win until the one-hot matmul FLOPs take over — tuned on the target
-# chip with tools/warp_tune.py.
-_CHUNK = 32   # output rows per one-hot block
-_COLS = 128   # output columns per banded block
-_BAND = 16    # x-halo: window width = _COLS + 2*_BAND
-_BAND_Y = 8   # y-halo: window height = _CHUNK + 2*_BAND_Y
 
 
 def _coords(wx, wy, factor, h, w):
@@ -46,162 +22,33 @@ def _coords(wx, wy, factor, h, w):
 
 
 def warp_bilinear(src: jnp.ndarray, wx: jnp.ndarray, wy: jnp.ndarray,
-                  factor: float = 1.0, with_mask: bool = True,
-                  banded: bool | None = None):
+                  factor: float = 1.0, with_mask: bool = True):
     """Warp `src` [..., H, W] by flow (wx, wy) [H, W] scaled by `factor`.
 
     Returns (warped, mask) — mask is float32 [H, W] (1 inside, 0 outside),
     or None when with_mask is False.
-
-    `banded` selects the windowed one-hot path (default: automatic for large
-    images): each output block contracts only against a source window that
-    follows the block's displacements, cutting the one-hot traffic by
-    ~(W/(T+2*BAND)); exact as long as the displacement *variation* within a
-    block stays under the 2*`_BAND` halo (smooth flow fields), with graceful
-    clamping at violations.
     """
     h, w = src.shape[-2], src.shape[-1]
-    if banded is None:
-        banded = (h > _CHUNK + 2 * _BAND_Y + 16) and (w > _COLS + 2 * _BAND + 16)
-    if banded:
-        out = _warp_banded(src, wx, wy, factor)
-        if not with_mask:
-            return out, None
-        x, y = _coords(wx, wy, factor, h, w)
-        mask = ((x >= 0) & (x <= w - 1) & (y >= 0)
-                & (y <= h - 1)).astype(src.dtype)
-        return out, mask
     x, y = _coords(wx, wy, factor, h, w)
-
     x0 = jnp.floor(x)
     y0 = jnp.floor(y)
     dx = x - x0
     dy = y - y0
-    x0c = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
-    x1c = jnp.clip(x0.astype(jnp.int32) + 1, 0, w - 1)
-    y0c = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
-    y1c = jnp.clip(y0.astype(jnp.int32) + 1, 0, h - 1)
+    x0i = x0.astype(jnp.int32)
+    y0i = y0.astype(jnp.int32)
+    x0c = jnp.clip(x0i, 0, w - 1)
+    x1c = jnp.clip(x0i + 1, 0, w - 1)
+    y0c = jnp.clip(y0i, 0, h - 1)
+    y1c = jnp.clip(y0i + 1, 0, h - 1)
 
-    lead = src.shape[:-2]
-    src2 = src.reshape((-1, h, w))                  # [C, H, W]
-
-    pad_rows = (-h) % _CHUNK
-    def padrows(a):
-        return jnp.pad(a, ((0, pad_rows), (0, 0)))
-
-    iota_x = jnp.arange(w, dtype=jnp.int32)
-    iota_y = jnp.arange(h, dtype=jnp.int32)
-
-    def chunk_fn(args):
-        x0c, x1c, dxc, y0c, y1c, dyc = args       # each [R, W]
-        # Ox [W_src, R, W]; two weighted one-hot columns per output pixel
-        ox = ((iota_x[:, None, None] == x0c[None]) * (1.0 - dxc)[None]
-              + (iota_x[:, None, None] == x1c[None]) * dxc[None]
-              ).astype(src2.dtype)
-        r = x0c.shape[0]
-        # C [C, H_src, R*W] = src2 [C, H_src, W_src] @ Ox [W_src, R*W]
-        c_mat = jax.lax.dot_general(
-            src2, ox.reshape(w, r * w),
-            dimension_numbers=(((2,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGH,
-            preferred_element_type=jnp.float32).reshape(-1, h, r, w)
-        oy = ((iota_y[:, None, None] == y0c[None]) * (1.0 - dyc)[None]
-              + (iota_y[:, None, None] == y1c[None]) * dyc[None]
-              ).astype(src2.dtype)
-        return (oy[None] * c_mat).sum(1)           # [C, R, W]
-
-    n_chunks = (h + pad_rows) // _CHUNK
-    args = tuple(padrows(a).reshape(n_chunks, _CHUNK, w)
-                 for a in (x0c, x1c, dx, y0c, y1c, dy))
-    out = jax.lax.map(chunk_fn, args)              # [n_chunks, C, R, W]
-    out = jnp.moveaxis(out, 1, 0).reshape((-1, h + pad_rows, w))[:, :h]
-    out = out.reshape(lead + (h, w))
+    top = (1.0 - dx) * src[..., y0c, x0c] + dx * src[..., y0c, x1c]
+    bottom = (1.0 - dx) * src[..., y1c, x0c] + dx * src[..., y1c, x1c]
+    out = (1.0 - dy) * top + dy * bottom
 
     if not with_mask:
         return out, None
     mask = ((x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)).astype(src.dtype)
     return out, mask
-
-
-def _warp_banded(src: jnp.ndarray, wx: jnp.ndarray, wy: jnp.ndarray,
-                 factor: float, block_cfg=None):
-    """Windowed one-hot warp: per (row, column) output block, dynamic-slice a
-    source window positioned at the block's minimum sample coordinate and
-    contract the bilinear one-hots only against it."""
-    h, w = src.shape[-2], src.shape[-1]
-    lead = src.shape[:-2]
-    src2 = src.reshape((-1, h, w))
-    c = src2.shape[0]
-
-    R, T, D, Dy = block_cfg or (_CHUNK, _COLS, _BAND, _BAND_Y)
-    T = min(T, w)
-    R = min(R, h)
-    wy_win = min(R + 2 * Dy, h)
-    wx_win = min(T + 2 * D, w)
-
-    x, y = _coords(wx, wy, factor, h, w)
-    x0 = jnp.floor(x)
-    y0 = jnp.floor(y)
-    dx = x - x0
-    dy = y - y0
-    x0c = jnp.clip(x0.astype(jnp.int32), 0, w - 1)
-    x1c = jnp.clip(x0.astype(jnp.int32) + 1, 0, w - 1)
-    y0c = jnp.clip(y0.astype(jnp.int32), 0, h - 1)
-    y1c = jnp.clip(y0.astype(jnp.int32) + 1, 0, h - 1)
-
-    pad_r = (-h) % R
-    pad_c = (-w) % T
-    def pad2(a):
-        # edge-pad so a partially-padded block's coordinate min/max still
-        # reflect its real pixels (the pad region is sliced off at the end)
-        return jnp.pad(a, ((0, pad_r), (0, pad_c)), mode="edge")
-
-    hp, wp = h + pad_r, w + pad_c
-    n_r, n_c = hp // R, wp // T
-
-    def blocks(a):
-        return (pad2(a).reshape(n_r, R, n_c, T).transpose(0, 2, 1, 3)
-                .reshape(n_r * n_c, R, T))
-
-    args = tuple(blocks(a) for a in (x0c, x1c, dx, y0c, y1c, dy))
-    iota_wx = jnp.arange(wx_win, dtype=jnp.int32)
-    iota_wy = jnp.arange(wy_win, dtype=jnp.int32)
-
-    def block_fn(a):
-        bx0, bx1, bdx, by0, by1, bdy = a
-        # anchor the window at the block's exact minimum sample coordinate:
-        # no rows/cols below min are ever sampled, so the whole halo budget
-        # covers displacement variation above it (allowance 2*D-1 in x,
-        # 2*Dy-1 in y instead of D-1/Dy-1 with a centered window)
-        off_x = jnp.clip(bx0.min(), 0, max(w - wx_win, 0))
-        off_y = jnp.clip(by0.min(), 0, max(h - wy_win, 0))
-        win = jax.lax.dynamic_slice(
-            src2, (0, off_y, off_x),
-            (c, min(wy_win, h), min(wx_win, w)))
-        lx0 = jnp.clip(bx0 - off_x, 0, win.shape[2] - 1)
-        lx1 = jnp.clip(bx1 - off_x, 0, win.shape[2] - 1)
-        ly0 = jnp.clip(by0 - off_y, 0, win.shape[1] - 1)
-        ly1 = jnp.clip(by1 - off_y, 0, win.shape[1] - 1)
-
-        ox = ((iota_wx[: win.shape[2], None, None] == lx0[None])
-              * (1.0 - bdx)[None]
-              + (iota_wx[: win.shape[2], None, None] == lx1[None])
-              * bdx[None]).astype(src2.dtype)
-        c_mat = jax.lax.dot_general(
-            win, ox.reshape(win.shape[2], R * T),
-            dimension_numbers=(((2,), (0,)), ((), ())),
-            precision=jax.lax.Precision.HIGH,
-            preferred_element_type=jnp.float32).reshape(c, win.shape[1], R, T)
-        oy = ((iota_wy[: win.shape[1], None, None] == ly0[None])
-              * (1.0 - bdy)[None]
-              + (iota_wy[: win.shape[1], None, None] == ly1[None])
-              * bdy[None]).astype(src2.dtype)
-        return (oy[None] * c_mat).sum(1)          # [C, R, T]
-
-    out = jax.lax.map(block_fn, args)             # [n_r*n_c, C, R, T]
-    out = (out.reshape(n_r, n_c, c, R, T).transpose(2, 0, 3, 1, 4)
-           .reshape(c, hp, wp)[:, :h, :w])
-    return out.reshape(lead + (h, w))
 
 
 def warp_image(src: jnp.ndarray, wx: jnp.ndarray, wy: jnp.ndarray):

@@ -7,7 +7,7 @@ epic_aux.cpp. Pipeline (epic.cpp:147-234):
   3. saliency filter (min-eigenvalue structure tensor threshold)
   4. consistency prefilter: Nadaraya-Watson estimate over pref_nn geodesic
      neighbours, drop matches deviating more than pref_th
-  5. geodesic k-NN of every seed (TPU distance transform + host Dijkstra)
+  5. geodesic k-NN of every seed (device distance transform + host Dijkstra)
   6. fit Nadaraya-Watson or locally-weighted affine models per seed
      (batched lstsq replacing LAPACK sgels_, epic_aux.cpp:430-472)
   7. apply to all pixels via the closest-seed label map

@@ -7,7 +7,7 @@ the same output contract: for a grid of points in im1, find the integer
 displacement in [-radius, radius]^2 minimizing the sum of absolute differences
 over a local patch, with a forward-backward consistency check.
 
-TPU formulation: instead of per-patch loops, scan over displacements — each
+Array formulation: instead of per-patch loops, scan over displacements — each
 step is one shifted absolute-difference image plus a box filter (all fused
 elementwise/stencil work), with a running argmin kept at the grid points only.
 """
@@ -25,11 +25,10 @@ def _box_filter(x, r: int):
     reduce_window sums.
 
     The integral-image (double-cumsum) formulation this replaces ran as
-    multi-pass associative scans on TPU — and the matcher evaluates the box
-    filter once per displacement inside a (2*radius+1)^2 fori_loop, which
-    made the scans ~2 s/jet of the stage-2 host-blocking time (SF_PROF
-    round 5). Two d-tap window sums are ~18 adds/pixel of plain VPU work
-    and numerically tighter (no huge cumsum partials)."""
+    multi-pass associative scans — and the matcher evaluates the box
+    filter once per displacement inside a (2*radius+1)^2 fori_loop. Two
+    d-tap window sums are ~18 adds/pixel of plain elementwise work and
+    numerically tighter (no huge cumsum partials)."""
     from jax import lax
 
     d = 2 * r + 1

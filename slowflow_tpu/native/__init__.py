@@ -1,11 +1,13 @@
 """Native (C++) host-side components with lazy compilation and Python fallback.
 
-The compute path of the framework is JAX/XLA/Pallas; this module covers the
-truly sequential host-side piece — the per-seed k-NN search over the tiny
+The compute path of the framework is JAX/XLA; this module covers the
+truly sequential host-side pieces — the per-seed k-NN search over the tiny
 seed-adjacency graph (a settled-array Dijkstra, written independently;
-fulfils the role of epic_aux.cpp:44-87). The sequential sweep
-distance-transform oracle lives in tests/ (tests/dt_oracle.py): it exists
-only to validate the TPU min-plus fixpoint and is not a production path.
+fulfils the role of epic_aux.cpp:44-87) and the PNG scanline unfilter of
+the frame reader (Average/Paeth rows are a left-to-right scan). The
+sequential sweep distance-transform oracle lives in tests/
+(tests/dt_oracle.py): it exists only to validate the device min-plus
+fixpoint and is not a production path.
 """
 from __future__ import annotations
 
@@ -17,27 +19,33 @@ import threading
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(_HERE, "geodesic.cpp")
-_LIB = os.path.join(_HERE, "libgeodesic.so")
+_SRCS = [os.path.join(_HERE, f) for f in ("geodesic.cpp", "png.cpp")]
+_LIB = os.path.join(_HERE, "libnative.so")
 _lock = threading.Lock()
 _lib = None
 _build_failed = False
 
 
 def _build() -> bool:
+    # build into a private file and rename it into place, so that processes
+    # building at the same time never load a half-written library
+    tmp = f"{_LIB}.{os.getpid()}.tmp"
     cmds = [
         ["g++", "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
-         _SRC, "-o", _LIB],
-        ["g++", "-O3", "-shared", "-fPIC", _SRC, "-o", _LIB],
-        ["cc", "-O3", "-shared", "-fPIC", "-lstdc++", _SRC, "-o", _LIB],
+         *_SRCS, "-o", tmp],
+        ["g++", "-O3", "-shared", "-fPIC", *_SRCS, "-o", tmp],
+        ["cc", "-O3", "-shared", "-fPIC", *_SRCS, "-lstdc++", "-o", tmp],
     ]
     for cmd in cmds:
         try:
             r = subprocess.run(cmd, capture_output=True, timeout=120)
-            if r.returncode == 0 and os.path.exists(_LIB):
+            if r.returncode == 0 and os.path.exists(tmp):
+                os.replace(tmp, _LIB)
                 return True
         except (OSError, subprocess.TimeoutExpired):
             continue
+    if os.path.exists(tmp):
+        os.remove(tmp)
     return False
 
 
@@ -50,8 +58,8 @@ def get_lib():
             return _lib
         if _build_failed:
             return None
-        if not os.path.exists(_LIB) or (
-                os.path.getmtime(_LIB) < os.path.getmtime(_SRC)):
+        if not os.path.exists(_LIB) or (os.path.getmtime(_LIB) < max(
+                os.path.getmtime(src) for src in _SRCS)):
             if not _build():
                 _build_failed = True
                 return None
@@ -69,8 +77,29 @@ def get_lib():
             np.ctypeslib.ndpointer(np.int32, flags="C"),
             np.ctypeslib.ndpointer(np.float32, flags="C"),
         ]
+        lib.png_unfilter.restype = ctypes.c_int
+        lib.png_unfilter.argtypes = [
+            ctypes.c_char_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            np.ctypeslib.ndpointer(np.uint8, flags="C"),
+        ]
         _lib = lib
         return _lib
+
+
+def png_unfilter(raw: bytes, h: int, stride: int, bpp: int):
+    """Undo the PNG scanline filters of a decompressed image stream
+    (h rows of 1 + stride bytes). Returns [h, stride] uint8, or None when
+    no C++ toolchain is available (the caller falls back to Python)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if len(raw) < h * (stride + 1):
+        raise ValueError("truncated PNG image data")
+    out = np.empty((h, stride), np.uint8)
+    rc = lib.png_unfilter(raw, h, stride, bpp, out)
+    if rc:
+        raise ValueError(f"bad PNG filter type in row {-1 - rc}")
+    return out
 
 
 def knn_graph_all(indptr: np.ndarray, indices: np.ndarray, data: np.ndarray,

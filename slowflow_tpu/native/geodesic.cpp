@@ -4,7 +4,7 @@
 // geodesically-closest seeds over the seed-adjacency graph
 // (epic_aux.cpp:44-87). The graph is tiny (≤ a few thousand nodes) and the
 // search is inherently sequential per source, so it runs on the host while
-// the pixel-level distance transform runs on TPU. This implementation is a
+// the pixel-level distance transform runs on the device. This is a
 // standard settled-array Dijkstra with early termination, written
 // independently of the reference's code.
 //
@@ -14,7 +14,8 @@
 // per source — with ~8k seeds that clear dominated the whole search
 // (O(n^2) writes across sources on the single-core benchmark host).
 //
-// Build: g++ -O3 -march=native -shared -fPIC -fopenmp geodesic.cpp -o libgeodesic.so
+// Build: compiled together with png.cpp into the package's native library
+// (slowflow_tpu/native/__init__.py).
 #include <algorithm>
 #include <cstdint>
 #include <limits>

@@ -1,17 +1,16 @@
 """Device-mesh sharding for jet-parallel and spatially-sharded execution.
 
 The reference is single-node OpenMP (SURVEY.md §2.3): the only parallel axes
-are (a) independent jets and (b) SIMD lanes. The TPU framework scales the same
-axes across chips:
+are (a) independent jets and (b) SIMD lanes. This framework scales the same
+axes across devices:
 
   - `jet` axis (DP): a batch of jet windows is sharded across devices; no
-    cross-jet communication exists, so this is pure data parallelism over
-    ICI/DCN.
+    cross-jet communication exists, so this is pure data parallelism.
   - `sp` axis (spatial): the H dimension of a single large image is sharded;
     the stencil ops (convolutions, SOR sweeps, warps) read halo rows, which
-    XLA lowers to neighbour collectives over ICI automatically under jit with
+    XLA lowers to neighbour collectives automatically under jit with
     sharding constraints. This is an extension beyond the reference (needed
-    only for frames exceeding one chip's HBM).
+    only for frames exceeding one device's memory).
 
 Statistics that cross the jet axis (sequence normalization, quantiles) are
 plain reductions; everything else is per-jet local.
@@ -49,22 +48,14 @@ def shard_jet_batch(mesh: Mesh, *arrays, batch_axis: int = 0,
 
 
 def sharded_jet_step(mesh: Mesh, params, spatial_shard: bool = False):
-    """Jitted multi-chip jet step: one `compute_one_level` pass over a batch
-    of windows, with batch sharded over `jet` and (optionally) image rows
-    over `sp`. Used by the multi-chip dry run and by the CLI when more than
-    one device is attached.
+    """Jitted multi-device jet step: one `compute_one_level` pass over a
+    batch of windows, with batch sharded over `jet` and (optionally) image
+    rows over `sp`. Used by the multi-device dry run.
     """
     from functools import partial
 
-    from dataclasses import replace
-
     from ..variational.multiframe import compute_one_level
 
-    # the pallas shift-warp / fused-assembly kernels are not vmappable or
-    # shardable; the XLA banded path partitions cleanly under pjit
-    if getattr(params, "warp_mode", "banded") != "banded" \
-            or getattr(params, "fused_data", False):
-        params = replace(params, warp_mode="banded", fused_data=False)
     fn = jax.vmap(partial(compute_one_level, p=params))
 
     def spec(*axes):

@@ -1,6 +1,6 @@
 """Trajectory accumulation and forward-backward consistency kernels.
 
-TPU re-expression of utils/utils.cpp:449-996: the per-pixel sequential chains
+Array re-expression of utils/utils.cpp:449-996: the per-pixel sequential chains
 become a `lax.scan` over the jet axis with all pixels updated in parallel;
 bilinear flow sampling is a batched gather.
 

@@ -286,13 +286,13 @@ def _add_bcgc_groups(px, py, flows, occl, data, data_dx, data_dy,
     For each pixel in a (2r+1)^2 window around p, sample image + gradients at
     the trajectory positions in all J+1 frames and sum |I_i - I_j| over all
     visible frame pairs, vectorized over hypotheses, window offsets and frame
-    pairs in one dispatch (the TPU replacement for the reference's quadruple
+    pairs in one dispatch (the replacement for the reference's quadruple
     loop).
 
     Layout: every large intermediate keeps the PIXEL dims (bh, bw) trailing.
     The natural channels/offsets-trailing formulation made XLA tile the
-    [.., ps, ps, 9] patch tensor on its tiny tail dims — a measured 14.2x
-    HBM padding expansion that dominated the propagation dispatch. Window
+    [.., ps, ps, 9] patch tensor on its tiny tail dims, padding device
+    memory traffic many times over. Window
     offsets are integers, so every offset shares the trajectory's fractional
     weights: one (2r+2)^2 patch is gathered per (frame, plane) from an
     edge-padded image (equivalent to clamp-at-border, utils.h:183-218) and

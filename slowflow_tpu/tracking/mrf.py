@@ -3,7 +3,7 @@
 The reference hands a general grid MRF (per-pixel label = hypothesis index,
 unary = trajectory energy, pairwise = smoothness-weighted trajectory distance
 plus occlusion disagreement) to the sequential TRW-S v1.3 library with a BP
-alternative (dense_tracking.cpp:1654-1872). The TPU re-expression runs
+alternative (dense_tracking.cpp:1654-1872). The array re-expression runs
 *synchronous* min-sum message passing over the 4-connected grid:
 
   - `approach=0` (TRW): tree-reweighted updates with uniform edge appearance
@@ -17,7 +17,7 @@ parity with the reference is judged at the labeling level (SURVEY.md §7 hard
 part 1/3).
 
 All messages live as [H, W, K] tensors; one iteration is a handful of
-broadcast min-reductions over [H, W, K, K] — fully parallel on TPU.
+broadcast min-reductions over [H, W, K, K] — fully parallel on the device.
 """
 from __future__ import annotations
 

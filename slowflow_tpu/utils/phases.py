@@ -2,7 +2,7 @@
 
 The reference logs per-phase wall-clock accumulators to its stats files
 (slow_flow.cpp:729-732,886-890; dense_tracking.cpp:1951-1964); this is the
-same discipline for the TPU CLIs, default-off so the hot paths pay nothing.
+same discipline for these CLIs, default-off so the hot paths pay nothing.
 
 Usage:
     with phase("epic.dt_dispatch"):

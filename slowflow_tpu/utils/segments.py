@@ -4,7 +4,7 @@ Re-implementation of `removeSmallSegments` (utils/utils.cpp:169-284): flood
 connected components whose members differ by at most `similarity_threshold`,
 zero out components smaller than `min_segment_size`. The reference's explicit
 flood-fill becomes a scipy connected-component labeling on the host (tiny
-maps; not a TPU workload).
+maps; not a device workload).
 Returns the validity mask (255 valid / 0 removed); modifies `F` in place like
 the reference.
 """

@@ -4,7 +4,7 @@ The reference instruments wall-clock time around preprocessing / epic /
 minimization and flushes per-phase accumulators to `results.info` /
 `result.info` (slow_flow.cpp:729-937, dense_tracking.cpp:1951-1964). This
 module provides the same lightweight discipline plus optional JAX device
-profiling (trace viewer) for the TPU compute path.
+profiling (trace viewer) for the device compute path.
 """
 from __future__ import annotations
 

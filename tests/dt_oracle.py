@@ -3,7 +3,7 @@ transform.
 
 This reproduces the reference's sweep-ordered DT semantics (the four
 diagonal raster sweeps with the quasi-eikonal two-neighbour update,
-epic_aux.cpp:92-179) so the TPU min-plus fixpoint implementation in
+epic_aux.cpp:92-179) so the parallel min-plus fixpoint implementation in
 slowflow_tpu/epic/distance.py can be validated against the sequential
 algorithm's converged field. It is quarantined here: nothing in the
 production package uses it.

@@ -19,6 +19,7 @@ from __future__ import annotations
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -26,7 +27,7 @@ import numpy as np
 HERE = Path(__file__).resolve().parent
 REPO = HERE.parent.parent
 REFERENCE = Path("/root/reference/epic_flow_extended")
-BUILD = Path("/tmp/epicflow_oracle_build")
+BUILD = Path(tempfile.gettempdir()) / "epicflow_oracle_build"
 
 H, W = 96, 128
 PAD = 24

@@ -120,21 +120,10 @@ def mf_defaults_ok(p):
     assert mp.sor_omega == 1.9
     assert mp.rho == (1.0,)
     assert mp.occlusion_reasoning is True
-    # kernel-route knobs follow the dataclass defaults and are overridable
-    assert (mp.warp_mode, mp.fused_data, mp.merge_warp, mp.jet_vmap,
-            mp.unroll_jets) == (MultiFrameParams.warp_mode,
-                                MultiFrameParams.fused_data,
-                                MultiFrameParams.merge_warp,
-                                MultiFrameParams.jet_vmap,
-                                MultiFrameParams.unroll_jets)
-    assert mp.fused_solve is MultiFrameParams.fused_solve
-    p.set_parameter("slow_flow_merge_warp", "1")
-    p.set_parameter("slow_flow_jet_vmap", "1")
-    p.set_parameter("slow_flow_warp_mode", "banded")
-    p.set_parameter("slow_flow_fused_solve", "1")
-    mp2 = MultiFrameParams.from_parameter_list(p)
-    assert (mp2.merge_warp, mp2.jet_vmap, mp2.warp_mode,
-            mp2.fused_solve) == (True, True, "banded", True)
+    # the batching choice follows the dataclass default and is overridable
+    assert mp.unroll_jets is MultiFrameParams.unroll_jets
+    p.set_parameter("slow_flow_unroll_jets", "0")
+    assert MultiFrameParams.from_parameter_list(p).unroll_jets is False
 
 
 def test_slow_flow_batched_sharded_mesh():

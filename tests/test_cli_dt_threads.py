@@ -1,6 +1,6 @@
 """dense_tracking CLI with -threads N (host prefetch pool) and
--batch_finals N (opt-in leading-F-axis batching — measured 0.83x on both CPU
-and the live chip, so batching is no longer implied by -threads): both must
+-batch_finals N (opt-in leading-F-axis batching, not implied by -threads):
+both must
 produce the same outputs as the serial path (reference analogue: OpenMP over
 start_jet, dense_tracking.cpp:726-727)."""
 import os

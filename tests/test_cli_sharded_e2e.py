@@ -1,9 +1,9 @@
 """Multi-device batch-sharded slow_flow CLI vs the single-device path.
 
 The CLI auto-shards a jet batch over the device mesh when the group size is
-divisible by the device count (cli/slow_flow.py, the TPU replacement for
+divisible by the device count (cli/slow_flow.py, the replacement for
 OpenMP-over-jets at slow_flow.cpp:706). The sharded path runs the SAME
-unrolled shift-warp + fused-Pallas body per shard via shard_map
+unrolled per-jet body per shard via shard_map
 (variational_mt_sharded), so sharded vs single-device outputs must agree
 BITWISE — any deviation means the sharding itself perturbed the math.
 """
@@ -11,9 +11,6 @@ import textwrap
 
 import numpy as np
 import pytest
-
-# multi-minute module (measured r5 cold run); excluded from the fast tier
-pytestmark = pytest.mark.slow
 
 
 from slowflow_tpu.io import read_flo

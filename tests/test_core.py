@@ -1,5 +1,6 @@
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
 from slowflow_tpu.core import (
     DERIV_5PT, DERIV_3PT, conv_horiz, conv_vert, gaussian_kernel,
@@ -56,9 +57,6 @@ def test_warp_identity(rng):
     src = rng.random((3, 6, 8)).astype(np.float32)
     z = jnp.zeros((6, 8), jnp.float32)
     out, mask = warp_bilinear(jnp.asarray(src), z, z)
-    # the one-hot contractions run at Precision.HIGH (bf16x3); newer XLA
-    # CPU emulates that instead of promoting to f32, so the identity bound
-    # is the HIGH-path contract (~1e-5 on unit-range images), not exactness
     np.testing.assert_allclose(np.asarray(out), src, atol=5e-5)
     np.testing.assert_array_equal(np.asarray(mask), 1.0)
 
@@ -68,7 +66,6 @@ def test_warp_integer_shift(rng):
     wx = jnp.full((5, 7), 1.0)
     wy = jnp.zeros((5, 7))
     out, mask = warp_bilinear(jnp.asarray(src), wx, wy)
-    # HIGH-precision (bf16x3) one-hot contraction bound, see test_warp_identity
     np.testing.assert_allclose(np.asarray(out)[0, :, :-1], src[0, :, 1:], atol=5e-5)
     m = np.asarray(mask)
     assert m[:, :-1].all() and (m[:, -1] == 0).all()
@@ -227,23 +224,77 @@ def test_pyramid_sizes():
     assert len(pyramid_sizes(6, 6, 5, 0.5)) < 5
 
 
-def test_warp_banded_matches_full(rng):
-    """The windowed one-hot warp must equal the full-width contraction for
-    smooth flows (displacement variation within the halo)."""
-    import jax.numpy as jnp
-    from slowflow_tpu.core.warp import warp_bilinear
+def _warp_numpy(src, wx, wy, factor=1.0):
+    """Four-corner bilinear oracle with the reference's per-corner clamping
+    and inside mask (variational_aux_mt.cpp:722-756). Sample coordinates are
+    formed in float32 like the reference's; the interpolation runs in
+    float64."""
+    src = np.asarray(src, np.float64)
+    h, w = src.shape[-2:]
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    f = np.float32(factor)
+    x = (xx + f * np.asarray(wx, np.float32)).astype(np.float64)
+    y = (yy + f * np.asarray(wy, np.float32)).astype(np.float64)
+    x0 = np.floor(x)
+    y0 = np.floor(y)
+    dx, dy = x - x0, y - y0
+    xa = np.clip(x0.astype(int), 0, w - 1)
+    xb = np.clip(x0.astype(int) + 1, 0, w - 1)
+    ya = np.clip(y0.astype(int), 0, h - 1)
+    yb = np.clip(y0.astype(int) + 1, 0, h - 1)
+    out = ((1 - dy) * ((1 - dx) * src[..., ya, xa] + dx * src[..., ya, xb])
+           + dy * ((1 - dx) * src[..., yb, xa] + dx * src[..., yb, xb]))
+    mask = (x >= 0) & (x <= w - 1) & (y >= 0) & (y <= h - 1)
+    return out, mask.astype(np.float32)
 
+
+def test_warp_banded_matches_full(rng):
+    """Large smooth flows (the field the windowed one-hot warp was checked
+    on): the gather warp must equal the full four-corner NumPy warp."""
     h, w = 160, 280
     src = rng.random((3, h, w)).astype(np.float32) * 255
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     wx = 30.0 + 8 * np.sin(yy / 30) + 4 * np.cos(xx / 50)
     wy = -18.0 + 6 * np.cos(xx / 40)
-    full, mf = warp_bilinear(jnp.asarray(src), jnp.asarray(wx),
-                             jnp.asarray(wy), banded=False)
-    band, mb = warp_bilinear(jnp.asarray(src), jnp.asarray(wx),
-                             jnp.asarray(wy), banded=True)
-    np.testing.assert_allclose(np.asarray(full), np.asarray(band), atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(mf), np.asarray(mb))
+    got, mask = warp_bilinear(jnp.asarray(src), jnp.asarray(wx),
+                              jnp.asarray(wy))
+    want, want_mask = _warp_numpy(src, wx, wy)
+    np.testing.assert_allclose(np.asarray(got), want, atol=1e-3)
+    np.testing.assert_array_equal(np.asarray(mask), want_mask)
+
+
+@pytest.mark.parametrize("case", ["interior", "borders", "out_of_range",
+                                  "factor"])
+def test_warp_gather_matches_numpy(rng, case):
+    """Gather warp vs the NumPy four-corner oracle on 0-255 images: within
+    f32 rounding (1e-3), masks equal."""
+    h, w = 23, 31
+    src = rng.random((3, h, w)).astype(np.float32) * 255
+    factor = 1.0
+    if case == "interior":
+        wx = rng.uniform(-1.5, 1.5, (h, w))
+        wy = rng.uniform(-1.5, 1.5, (h, w))
+    elif case == "borders":
+        # push every sample onto or just past the frame edges
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+        wx = np.where(xx < w / 2, -xx - 0.25, (w - 1) - xx + 0.25)
+        wy = np.where(yy < h / 2, -yy, (h - 1) - yy)
+    elif case == "out_of_range":
+        wx = rng.uniform(-3 * w, 3 * w, (h, w))
+        wy = rng.uniform(-3 * h, 3 * h, (h, w))
+    else:
+        wx = rng.uniform(-2, 2, (h, w))
+        wy = rng.uniform(-2, 2, (h, w))
+        factor = -2.5
+    wx = wx.astype(np.float32)
+    wy = wy.astype(np.float32)
+    got, mask = warp_bilinear(jnp.asarray(src), jnp.asarray(wx),
+                              jnp.asarray(wy), factor=factor)
+    want, want_mask = _warp_numpy(src, wx, wy, factor)
+    np.testing.assert_allclose(np.asarray(got), want, atol=1e-3)
+    np.testing.assert_array_equal(np.asarray(mask), want_mask)
+    if case == "out_of_range":
+        assert want_mask.mean() < 0.5       # most samples fall outside
 
 
 def test_warp_backward():

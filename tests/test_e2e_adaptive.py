@@ -8,9 +8,6 @@ import textwrap
 import numpy as np
 import pytest
 
-# multi-minute module (measured r5 cold run); excluded from the fast tier
-pytestmark = pytest.mark.slow
-
 
 from slowflow_tpu.io import read_flo
 from slowflow_tpu.io.images import write_image

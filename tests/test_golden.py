@@ -6,11 +6,15 @@ The reference pins behavior with example outputs checked by eye; here the
 pin is mechanical so cross-round refactors can't silently shift results.
 """
 import pathlib
+import sys
 
 import numpy as np
 import pytest
 
-import tests.golden.make_goldens as gg
+# by path: an installed package named `tests` would shadow `tests.golden`
+sys.path.insert(0, str(pathlib.Path(__file__).parent / "golden"))
+
+import make_goldens as gg  # noqa: E402
 
 GOLD_PATH = pathlib.Path(__file__).parent / "golden" / "goldens.npz"
 

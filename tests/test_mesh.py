@@ -35,8 +35,7 @@ def test_spatial_sharding_matches_unsharded():
 
     p = MultiFrameParams(S=2, rho=(1.0,), omega=(1.0,), layers=1,
                          niter_alter=2, niter_outer=2, niter_inner=1,
-                         niter_solver=4, occlusion_reasoning=True,
-                         warp_mode="banded", fused_data=False)
+                         niter_solver=4, occlusion_reasoning=True)
     b, h, w = n_jet, 32, 40
     args = _inputs(b, 2, h, w)
 
@@ -65,8 +64,7 @@ def test_spatial_sharding_matches_unsharded():
 
 @pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
 def test_dryrun_multichip_inprocess():
-    """The driver's dry run body executes directly when enough devices are
-    live (the subprocess bootstrap path is exercised by the driver itself)."""
+    """The dry run body executes directly when enough devices are live."""
     import sys
     import os
     sys.path.insert(0, os.path.dirname(os.path.dirname(
@@ -75,16 +73,12 @@ def test_dryrun_multichip_inprocess():
     g._dryrun_body(len(jax.devices()))
 
 
-@pytest.mark.slow          # 712 s in the r5 cold run
 @pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_shard_map_jet_axis_bitwise_vs_single():
-    """variational_mt_sharded (shard_map over jet, unrolled Pallas body per
-    shard) must match the single-device unrolled pipeline BITWISE: the
-    per-jet math is identical, only the placement differs. This pins
-    sharded-vs-unsharded across device counts (1 vs 8) separately from any
-    kernel-difference tolerance. (Default jet_vmap=False keeps both sides on
-    the per-jet unroll; the batched-kernel path's reduction order differs in
-    ulps.)"""
+    """variational_mt_sharded (shard_map over jet, unrolled body per shard)
+    must match the single-device unrolled pipeline BITWISE: the per-jet math
+    is identical, only the placement differs. This pins sharded-vs-unsharded
+    across device counts (1 vs 8)."""
     from slowflow_tpu.variational.multiframe import (
         variational_mt_batched, variational_mt_sharded)
 
@@ -99,63 +93,3 @@ def test_shard_map_jet_axis_bitwise_vs_single():
     for a, b, name in zip(sharded, single, ("wx", "wy", "occ")):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
                                       err_msg=name)
-
-
-@pytest.mark.slow
-@pytest.mark.nocache
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_shard_map_merge_warp_bitwise_vs_single():
-    """The merged warp+assembly kernel (merge_warp=True) composes with
-    shard_map jet sharding: sharded vs single-device unrolled runs must stay
-    bitwise equal, exactly like the two-kernel path — guards the composition
-    if the merge_warp default flips after the on-chip A/B.
-
-    4 devices, not 8: the 8-partition variant of this program segfaults the
-    native XLA:CPU compiler deterministically — in an isolated fresh
-    process with the persistent compilation cache fully disabled (round-5
-    forensics; the round-4 "cache write" hypothesis was wrong for THIS
-    test, right for the single-device ones). The 4-partition program
-    compiles and the bitwise sharded-vs-single guarantee is device-count
-    agnostic."""
-    from slowflow_tpu.variational.multiframe import (
-        variational_mt_batched, variational_mt_sharded)
-
-    p = MultiFrameParams(S=3, rho=(1.0, 1.0), omega=(0.0, 2.0), layers=1,
-                         niter_alter=1, niter_outer=2, niter_solver=6,
-                         occlusion_reasoning=True, smoothing=1,
-                         merge_warp=True)
-    args = _inputs(4, 3, 32, 40)
-    mesh = make_mesh(n_jet=4, n_sp=1, devices=jax.devices()[:4])
-    wx, wy, seq, cw, na, ns = args
-    sharded = variational_mt_sharded(wx, wy, seq, p, mesh, cw, na, ns)
-    single = variational_mt_batched(wx, wy, seq, p, cw, na, ns)
-    for a, b, name in zip(sharded, single, ("wx", "wy", "occ")):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b),
-                                      err_msg=name)
-
-
-@pytest.mark.slow          # 294 s in the r5 cold run
-@pytest.mark.skipif(len(jax.devices()) < 4, reason="needs >=4 devices")
-def test_shard_map_local_batched_kernels_vs_single():
-    """shard_map over jet with a LOCAL batch > 1 per device routes each
-    shard through the vmapped batched-Pallas-kernel path (jet_vmap=True);
-    it must agree with the unsharded batched run to float-reassociation
-    noise."""
-    from slowflow_tpu.variational.multiframe import (
-        variational_mt_batched, variational_mt_sharded)
-
-    p = MultiFrameParams(S=3, rho=(1.0, 1.0), omega=(0.0, 2.0), layers=2,
-                         niter_alter=2, niter_outer=3, niter_solver=10,
-                         occlusion_reasoning=True, smoothing=1,
-                         jet_vmap=True)
-    b = 8
-    args = _inputs(b, 3, 48, 64)
-    mesh = make_mesh(n_jet=4, n_sp=1,
-                     devices=jax.devices()[:4])     # local batch = 2
-    wx, wy, seq, cw, na, ns = args
-    sharded = variational_mt_sharded(wx, wy, seq, p, mesh, cw, na, ns)
-    single = variational_mt_batched(wx, wy, seq, p, cw, na, ns)
-    for a, b_, name in zip(sharded[:2], single[:2], ("wx", "wy")):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b_),
-                                   atol=1e-4, err_msg=name)
-    assert (np.asarray(sharded[2]) != np.asarray(single[2])).mean() < 0.01

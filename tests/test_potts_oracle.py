@@ -2,7 +2,7 @@
 
 The reference solves the per-level occlusion labeling exactly with GCO
 alpha-expansion — for two labels a single s-t mincut
-(variational_aux_mt.cpp:758-887). The TPU path uses multi-start red-black
+(variational_aux_mt.cpp:758-887). This framework uses multi-start red-black
 ICM (slowflow_tpu/variational/multiframe.py:solve_binary_potts). This module
 provides an exact mincut oracle (own graph construction over scipy's
 maximum_flow) and enforces the quality bound that PARITY.md claims: the ICM

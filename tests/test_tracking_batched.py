@@ -1,6 +1,6 @@
 """Batched final-pair tracking must match the serial path.
 
-The TPU stage-3 parallelism (track_final_pairs_batched) replaces the
+The batched stage-3 path (track_final_pairs_batched) replaces the
 reference's OpenMP-over-finals (dense_tracking.cpp:726-727) with a leading
 F axis over vmapped alternation kernels. Every final seeds the same PRNG
 stream a serial run would, so batched == serial up to float reassociation.

@@ -15,15 +15,16 @@ pair (dense_tracking.cpp:564). Default --jets 10 / --finals 2 keeps the
 wall-clock bounded; --jets 225 reproduces the full teaser jet count.
 
 Usage: python tools/bench_pipeline.py [--jets N] [--finals N] [--out DIR]
-Prints one JSON line with per-stage wall-clock and accuracy checks.
+Prints one JSON line with per-stage wall-clock, the part of each stage spent
+tracing and compiling, and accuracy checks.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import os
 import shutil
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -32,55 +33,43 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
+from slowflow_tpu.utils.compile_cache import (  # noqa: E402
+    CompileClock, enable_compile_cache)
+
 U, V = 1.5, -0.8
 H, W = 270, 480
 START = 2     # = ref * skip: the first jet window reaches back ref frames
 
 
 def make_sequence(seq_dir: Path, n_frames: int, seed=0):
-    """Two-layer scene: smooth background translating (U, V) px/frame with a
-    counter-moving foreground disc (occlusion boundaries keep the occlusion
-    reasoning honestly busy), saved as 8-bit PNGs."""
+    """The two-layer scene of tools/scene.py (background translating
+    (U, V) px/frame, counter-moving foreground disc) at frame times
+    0..n_frames-1, saved as 8-bit PNGs."""
+    from scene import two_layer_frames
+
     from slowflow_tpu.io.images import write_image
 
-    rng = np.random.default_rng(seed)
     pad = int(np.ceil(n_frames * max(abs(U), abs(V)))) + 4
-    shape = (H + 2 * pad, W + 2 * pad)
-    base = rng.random(shape).astype(np.float32) * 255
-    fg = rng.random(shape).astype(np.float32) * 255
-    for _ in range(2):
-        base = 0.25 * (np.roll(base, 1, 0) + np.roll(base, -1, 0)
-                       + np.roll(base, 1, 1) + np.roll(base, -1, 1))
-        fg = 0.25 * (np.roll(fg, 1, 0) + np.roll(fg, -1, 0)
-                     + np.roll(fg, 1, 1) + np.roll(fg, -1, 1))
-    yy, xx = np.mgrid[0:H, 0:W]
-    cy, cx, r = H // 2, W // 2, min(H, W) // 6
-
-    def sample(img, dx_t, dy_t):
-        xs = np.clip(xx + pad - dx_t, 0, shape[1] - 2)
-        ys = np.clip(yy + pad - dy_t, 0, shape[0] - 2)
-        x0 = xs.astype(int)
-        y0 = ys.astype(int)
-        fx = xs - x0
-        fy = ys - y0
-        return (img[y0, x0] * (1 - fx) * (1 - fy)
-                + img[y0, x0 + 1] * fx * (1 - fy)
-                + img[y0 + 1, x0] * (1 - fx) * fy
-                + img[y0 + 1, x0 + 1] * fx * fy)
-
+    frames = two_layer_frames(range(n_frames), H, W, U, V, seed=seed,
+                              pad=pad)
     seq_dir.mkdir(parents=True, exist_ok=True)
-    for f in range(n_frames):
-        im = sample(base, f * U, f * V)
-        im_fg = sample(fg, -f * U, f * V)
-        in_fg = ((yy - (cy + f * V)) ** 2 + (xx - (cx - f * U)) ** 2) < r * r
-        im = np.where(in_fg, im_fg, im)
+    for f, im in enumerate(frames):
         write_image(seq_dir / f"frame_{f:04d}.png",
                     np.repeat(im[..., None], 3, -1))
 
 
 def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
-                 batch: int = 4, threads: int = 1, verbose=False):
-    """Returns the metrics dict; `root` is wiped first."""
+                 batch: int = 4, threads: int = 1):
+    """Returns the metrics dict; `root` is wiped first. Stage times are
+    wall clock and include compilation; `stageN_compile_s` is the part of
+    stage N spent tracing, lowering and compiling (utils.compile_cache.
+    CompileClock)."""
+    with CompileClock() as clock:
+        return _run_pipeline(root, jets, finals, samples, batch, threads,
+                             clock)
+
+
+def _run_pipeline(root, jets, finals, samples, batch, threads, clock):
     import textwrap
 
     from slowflow_tpu.cli.adaptive_fr import main as afr_main
@@ -97,6 +86,7 @@ def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
     t_gen = time.perf_counter() - t0
 
     # ---------------------------------------------------------- stage 1
+    c1 = time.time()
     t0 = time.perf_counter()
     rc = afr_main(["-path", str(root), "-folder", "seq",
                    "-format", "frame_%04i.png", "-scale", "0.5",
@@ -143,6 +133,7 @@ def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
     slow_flow_niter_inner\t1
     slow_flow_niter_solver\t30
     """))
+    c2 = time.time()
     t0 = time.perf_counter()
     rc = sf_main([str(cfg2), "-batch", str(batch)])
     assert rc == 0
@@ -152,9 +143,7 @@ def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
         """True background pixels over frames [f_lo, f_hi]: everything
         outside the foreground disc's trajectory corridor (the corridor's
         true flow is the DISC's counter-motion, so scoring it against the
-        background constant penalizes correct output — the r4 pipeline
-        dt_flow_err 0.105 'overshoot' was exactly this, deterministic
-        across repeats, not noise)."""
+        background constant penalizes correct output)."""
         yy, xx = np.mgrid[0:H, 0:W]
         cy, cx, r = H // 2, W // 2, min(H, W) // 6
         m = np.ones((H, W), bool)
@@ -197,6 +186,7 @@ def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
     acc_gradient_constancy\t1.0
     seed\t3
     """))
+    c3 = time.time()
     t0 = time.perf_counter()
     dt_args = [str(cfg3)]
     if threads > 1:
@@ -218,26 +208,32 @@ def run_pipeline(root: Path, jets: int, finals: int, samples: int = 4,
                                                       ::int(xy_incr)]
     dt_err = float(np.median(dt_bg[dt_mask[dt_inner]]))
 
+    k1 = clock.seconds(c1) - clock.seconds(c2)
+    k2 = clock.seconds(c2) - clock.seconds(c3)
+    k3 = clock.seconds(c3)
     solves = 2 * jets                       # forward + backward per jet
     return {
-        "pipeline_s": round(t1 + t2 + t3, 2),
+        "pipeline_s": t1 + t2 + t3,
         # whole-pipeline amortized jet throughput: the north-star metric
         # (frame-pairs/sec) charged with EVERY cost — stage-1 sampling,
         # EPIC init, I/O, device solves, and dense tracking
-        "pipeline_jets_per_sec": round(jets / (t1 + t2 + t3), 3),
-        "stage1_adaptive_fr_s": round(t1, 2),
-        "stage2_slow_flow_s": round(t2, 2),
+        "pipeline_jets_per_sec": jets / (t1 + t2 + t3),
+        "stage1_adaptive_fr_s": t1,
+        "stage1_compile_s": k1,
+        "stage2_slow_flow_s": t2,
+        "stage2_compile_s": k2,
         "stage2_solves": solves,
-        "stage2_solves_per_sec": round(solves / t2, 3),
-        "stage3_dense_tracking_s": round(t3, 2),
+        "stage2_solves_per_sec": solves / t2,
+        "stage3_dense_tracking_s": t3,
+        "stage3_compile_s": k3,
         "stage3_finals": finals,
         "stage3_threads": threads,
-        "stage3_s_per_final": round(t3 / finals, 2),
+        "stage3_s_per_final": t3 / finals,
         "jets": jets,
-        "quantil": round(quantil, 3),
-        "sf_flow_err_px": round(sf_err, 3),
-        "dt_flow_err_px": round(dt_err, 3),
-        "seq_gen_s": round(t_gen, 2),
+        "quantil": quantil,
+        "sf_flow_err_px": sf_err,
+        "dt_flow_err_px": dt_err,
+        "seq_gen_s": t_gen,
     }
 
 
@@ -248,19 +244,16 @@ def main():
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--threads", type=int, default=1,
                     help="stage-3 final-pair batch + prefetch threads")
-    ap.add_argument("--out", default="/tmp/bench_pipeline")
-    ap.add_argument("--save", default="",
-                    help="also write the JSON to this path (bench.py picks "
-                         "up tools/bench_pipeline_measured.json)")
+    ap.add_argument("--out", default="",
+                    help="working directory (default: a temporary one)")
     args = ap.parse_args()
 
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache")
-    out = run_pipeline(Path(args.out), args.jets, args.finals,
-                       batch=args.batch, threads=args.threads)
+    enable_compile_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = run_pipeline(Path(args.out or tmp) / "run", args.jets,
+                           args.finals, batch=args.batch,
+                           threads=args.threads)
     print(json.dumps(out))
-    if args.save:
-        with open(args.save, "w") as fh:
-            json.dump(out, fh)
 
 
 if __name__ == "__main__":

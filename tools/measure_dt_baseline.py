@@ -30,8 +30,7 @@ derived from it is conservative. Single thread: the reference parallelizes
 over final pairs (dense_tracking.cpp:726), never inside one.
 
 Usage: python tools/measure_dt_baseline.py [--calls 200000]
-Writes /tmp/dt_baseline.json; copy to tools/dt_baseline_measured.json to
-check it in.
+Writes dt_baseline.json to the temporary directory.
 """
 from __future__ import annotations
 
@@ -41,13 +40,14 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = Path("/root/reference")
-BUILD = Path("/tmp/dt_oracle_build")
-RESULT = Path("/tmp/dt_baseline.json")
+BUILD = Path(tempfile.gettempdir()) / "dt_oracle_build"
+RESULT = Path(tempfile.gettempdir()) / "dt_baseline.json"
 
 H, W, JETS, SKIP = 270, 480, 5, 1
 

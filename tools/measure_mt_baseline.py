@@ -3,8 +3,8 @@
 Builds an out-of-tree harness around the reference's *unmodified*
 `variational_mt.cpp` + `variational_aux_mt.cpp` + `solver.c` + `image.c`
 (+ `parameter_list.cpp`) and times `Variational_MT::variational` on the
-exact bench workload (bench.py `_moving_sequence`, 480x270, S=3, 5 pyramid
-layers, 10 alter x 10 outer x 30 SOR) with `slow_flow_occlusion_reasoning=0`
+exact bench workload (`tools/scene.py` `moving_sequence`, 480x270, S=3,
+5 pyramid layers, 10 alter x 10 outer x 30 SOR) with `slow_flow_occlusion_reasoning=0`
 — GCO is absent in this environment, so its header is replaced by an
 abort()ing stub that the occlusion-off path never reaches. With occlusions
 off the reference keeps BOTH data-term directions active per pixel
@@ -17,8 +17,8 @@ reference's, compiled with its own flags (-O3 -msse4, single thread — the
 reference parallelizes over jets, never inside one; slow_flow.cpp:706).
 
 Usage: python tools/measure_mt_baseline.py [--runs 2]
-Prints one JSON line {"t_jet_s": ..., "jets_per_sec_core": ...} and appends
-nothing anywhere — bench.py reads /tmp/mt_baseline.json if present.
+Prints one JSON line {"t_jet_s": ..., "jets_per_sec_core": ...} and writes
+it to mt_baseline.json in the temporary directory.
 """
 from __future__ import annotations
 
@@ -27,6 +27,7 @@ import json
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -34,8 +35,8 @@ import numpy as np
 
 REPO = Path(__file__).resolve().parent.parent
 REFERENCE = Path("/root/reference")
-BUILD = Path("/tmp/mt_oracle_build")
-RESULT = Path("/tmp/mt_baseline.json")
+BUILD = Path(tempfile.gettempdir()) / "mt_oracle_build"
+RESULT = Path(tempfile.gettempdir()) / "mt_baseline.json"
 
 H, W, S = 270, 480, 3
 
@@ -172,14 +173,10 @@ int main(int argc, char** argv) {
 
 
 def make_window() -> Path:
-    sys.path.insert(0, str(REPO))
-    import importlib.util
+    from scene import moving_sequence
 
-    spec = importlib.util.spec_from_file_location("bench", REPO / "bench.py")
-    bench = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(bench)
     f = 2 * (S - 1) + 1
-    seq = bench._moving_sequence(f, H, W, 1.5, -0.8, seed=0)
+    seq = moving_sequence(f, H, W, 1.5, -0.8, seed=0)
     raw = BUILD / "window.raw"
     seq.astype(np.float32).tofile(raw)
     return raw
